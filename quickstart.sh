@@ -9,7 +9,7 @@ echo "=== spotify_recommender_tpu quickstart ==="
 echo "--- checking dependencies"
 python - <<'EOF'
 import importlib, sys
-missing = [m for m in ("jax", "flax", "optax", "numpy") if importlib.util.find_spec(m) is None]
+missing = [m for m in ("jax", "optax", "numpy", "scipy") if importlib.util.find_spec(m) is None]
 if missing:
     sys.exit(f"missing python deps: {missing}")
 import jax

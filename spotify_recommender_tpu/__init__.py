@@ -1,5 +1,5 @@
-"""spotify_recommender_tpu — a TPU-native candidate-retrieval and recommender
-framework.
+"""spotify_recommender_tpu — a candidate-retrieval and recommender framework
+in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 CUDA/C++ recommender (``Iamdarika/Spotify_recommender``): CSV → normalized
@@ -11,7 +11,7 @@ Layer map (see SURVEY.md §7):
 
 - ``core``      — config dataclasses, mesh/device setup, logging, rng
 - ``data``      — feature schema, CSV ingest, jit normalization, catalog artifact
-- ``ops``       — jnp oracle scorer + Pallas fused score/top-k kernels
+- ``ops``       — jnp oracle scorer + the fused score/top-k Triton kernel
 - ``retrieval`` — Catalog + Retriever API (by row / id / name, batched)
 - ``models``    — ALS & SGD matrix factorization, two-tower
 - ``parallel``  — mesh specs, sharded catalog, partial top-k + allgather merge

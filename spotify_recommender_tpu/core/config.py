@@ -57,75 +57,34 @@ class MeshConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RetrievalConfig:
-    """Retrieval knobs (reference defaults: top-10, main.cpp:166)."""
+    """Retrieval knobs (reference defaults: top-10, main.cpp:166).
+
+    Retrieval is exact fp32 cosine, always: `dtype` and `exact_scores`
+    accept only those values, so no caller can run an approximate tier
+    under an exact label (or the reverse)."""
 
     top_k: int = 10
-    # Pallas kernel tiling; catalog tile rides the HBM-streamed axis.
-    # Defaults tuned on v5e (1M items, 1k queries, round 2): 256x8192 —
-    # the smaller query tile halves the live score/structure footprint
-    # and measured consistently >= the 512 tile (7.5 vs 11.5 ms best
-    # samples at B=1024/1M through the certified tier).
-    query_tile: int = 256
-    catalog_tile: int = 8192
     # guard used when normalizing by the product of norms
     eps: float = COSINE_EPS
-    # Use the fused Pallas kernel when possible; else the jnp oracle.
+    # False forces the XLA paths even where retrieval/path.py would pick
+    # the fused Triton kernel.
     use_pallas: bool = True
-    # Catalog storage dtype. "float32" (default) keeps the certified
-    # exact tier.  "bfloat16" selects the APPROX tier (round 5: the v3
-    # bin-scan kernel without rerank/certificate — ops/pallas/fused_topk
-    # ApproxRetriever; score error <= 2e-5, recall@10 >= 0.99) for
-    # serving tiers where bit-exactness is not contractual.  Requires
-    # exact_scores=False.
     dtype: str = "float32"
-    # True: reproduce the reference's division-form cosine epilogue
-    # (dot / (|x||q|) with the 1e-8 product guard) bit-faithfully.
-    # False: pre-normalize catalog rows + queries at load time — the
-    # mathematically identical fast path (scores = clipped dots), cheaper
-    # per element; orderings agree except at 1-ulp ties.
+    # reproduce the reference's division-form cosine epilogue
+    # (dot / (|x||q|) with the 1e-8 product guard)
     exact_scores: bool = True
-    # CertifiedRetriever: candidates kept by the bf16x2 prefilter before
-    # the exact fp32 rerank; larger = fewer certificate fallbacks.
-    prefilter: int = 32
-    # Certified scan kernel: "v3" = epilogue-free bin scan (raw unit-dot
-    # approx scores, exclusion/padding handled at the rerank; recorded
-    # round-4 ablation in docs/PERFORMANCE.md); "v2" = round-2 kernel
-    # with the in-scan cosine epilogue.
-    scan: str = "v3"
-    # v3 bin depth: each bin keeps its top-`scan_depth` candidates plus a
-    # (depth+1)-th-best coverage bound.  Production default is the
-    # round-5 depth-2 + escalate-3 pair: the depth-2 scan runs ~25-30%
-    # faster than depth-3 (register pressure, round-4 sweep) and its
-    # ~1.5% per-query coverage failures are re-certified by the in-jit
-    # depth-3 escalation rescan instead of the oracle (round-5 sweep:
-    # 10M/B=1024 34.5 -> 25.9 ms, 0 oracle fallbacks; both sweeps in
-    # docs/PERFORMANCE.md).
-    scan_depth: int = 2
-    # v3 bin count W (0 = auto: 128).  Fewer bins = fewer live vector
-    # registers in the scan loop (the round-4 sweep measured depth-3
-    # W=128 at 68% the scan time of depth-2 W=1024 — register pressure,
-    # not op count, dominates) at the price of a higher bin-collision
-    # fallback rate; must divide the catalog tile's 128-lane slice count.
-    # Large-k workloads (k >> 10) should raise this: the collision rate
-    # grows ~C(k, depth+1) / W^depth.
-    scan_bins: int = 0
-    # Depth-escalation rescan (v3 only; 0 = disabled): certificate-
-    # failing queries are re-scanned in-jit at THIS deeper bin depth
-    # (catalog streamed once more for the <= 32 failing queries) before
-    # any oracle fallback.  Lets a shallow fast production scan
-    # (scan_depth=2 runs ~30% faster than 3; round-4/5 sweeps in
-    # docs/PERFORMANCE.md) keep exactness without the fallback-capacity
-    # cliff: zero-failure batches skip the rescan entirely (lax.cond).
-    scan_escalate: int = 3
-    # bf16x2 catalog layout: 4 planes [hi,lo,hi,lo] = ONE MXU dot pass
-    # (fastest for batched serving, 96 B/item); 2 planes [hi,lo] = TWO
-    # dot passes but half the bytes — better for the HBM-stream-bound
-    # small-batch/large-catalog regime (e.g. B=1 at 10M items).
-    split_planes: int = 4
-    # Proven |approx - exact| bound for the bf16x2 split-plane dot
-    # (see ops/pallas/fused_topk.py BF16X2_EPS derivation); the certified
-    # tier's exactness certificate uses this margin.
-    certify_eps: float = 2e-5
+
+    def __post_init__(self) -> None:
+        if self.dtype != "float32":
+            raise ValueError(
+                f"RetrievalConfig.dtype={self.dtype!r}: only exact float32 "
+                "retrieval exists"
+            )
+        if not self.exact_scores:
+            raise ValueError(
+                "RetrievalConfig.exact_scores=False: only the exact "
+                "reference epilogue exists"
+            )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,16 +111,14 @@ class TwoTowerConfig:
     batch_size: int = 1024
     num_steps: int = 1000
     seed: int = 0
-    # "bfloat16" runs tower matmuls/activations in bf16 on the MXU while
-    # params, the L2-normalize epilogue, the loss, and optimizer state
-    # stay fp32 (standard TPU mixed precision); "float32" = full precision
+    # "bfloat16" runs tower matmuls/activations in bf16 while params, the
+    # L2-normalize epilogue, the loss, and optimizer state stay fp32
+    # (standard mixed precision); "float32" = full precision
     compute_dtype: str = "float32"
     # False: the ITEM tower skips L2 normalization so embedding magnitude
-    # can encode popularity (the query side stays unit-norm).  On the
-    # co-listen benchmark workload the cosine item-item ceiling is ~0.17
-    # recall@10 vs ~0.25 for raw-dot scoring (round-5 ceiling analysis,
-    # docs/PERFORMANCE.md) — cosine towers structurally cannot use
-    # popularity.  Default True (unit-norm) for cosine-MIPS serving.
+    # can encode popularity (the query side stays unit-norm); cosine
+    # towers structurally cannot use popularity.  Default True (unit-norm)
+    # for cosine-MIPS serving.
     normalize_items: bool = True
 
 

@@ -1,6 +1,6 @@
 """Device / mesh setup.
 
-TPU-native replacement for the reference's GPU device manager
+Replacement for the reference's GPU device manager
 (reference Recommender.cu:100-182: cudaGetDeviceCount → cudaSetDevice(0) →
 dlopen cuBLAS, with a 7-point CPU fallback ladder).  In JAX the fallback is
 free by construction — the same program runs on the CPU backend — so the

@@ -1,6 +1,6 @@
 """Catalog artifact: the preprocessed, device-ready item corpus.
 
-TPU-native replacement for the reference's binary catalog
+Replacement for the reference's binary catalog
 (reference DataManager.cpp:315-344 write, :363-409 read; per-song layout
 Song.h:35-77).  Differences by design:
 

@@ -1,6 +1,6 @@
 """Feature normalization: jit-compiled min-max pipeline.
 
-TPU-native replacement for the reference's OpenMP normalize pass
+Replacement for the reference's OpenMP normalize pass
 (reference DataManager.cpp:270-301).  Exact behavioral contract:
 
 - per-feature min/max over *valid* rows only (DataManager.cpp:273-280);
@@ -8,8 +8,8 @@ TPU-native replacement for the reference's OpenMP normalize pass
   0.5 (DataManager.cpp:291-295), computed in fp32;
 - feature[11] = genre_id / max(1, num_genres - 1) (DataManager.cpp:299).
 
-All math runs as one fused XLA program — on TPU this is a trivially
-HBM-bandwidth-bound elementwise pass; the jit also makes the pipeline
+All math runs as one fused XLA program — a memory-bound elementwise
+pass on any device; the jit also makes the pipeline
 vmappable and differentiable for downstream feature towers.
 """
 

@@ -1,17 +1,16 @@
 """Matrix factorization for implicit feedback: ALS + SGD trainers.
 
 The reference has no training at all (SURVEY.md §2: features are
-hand-crafted; scope extension per BASELINE.json config 3).  TPU-first
-design:
+hand-crafted; scope extension per BASELINE.json config 3).  Design:
 
 - **iALS** (Hu/Koren/Volinsky 2008, via PAPERS.md iALS++ background):
   alternating ridge solves with the Gramian trick —
   ``A_u = YᵀY + λI + Σ_i α·c_ui · y_i y_iᵀ``, ``b_u = Σ_i (1 + α·c_ui) y_i``.
   Users are processed as one batched program: interactions are padded to a
   fixed ``max_degree`` (static shapes for XLA), per-user normal matrices
-  are built with einsum on the MXU, and all solves run as **one batched
-  Cholesky** (`jax.scipy.linalg.cho_solve`) — thousands of D×D solves is
-  exactly the regime the MXU batches well at D ≤ 128.
+  are built with batched einsums at `Precision.HIGHEST` (no TF32 on a
+  GPU), and all solves run as **one batched Cholesky**
+  (`jax.scipy.linalg.cho_solve`) — thousands of D×D solves at D ≤ 128.
 - **SGD**: confidence-weighted MSE on positives + sampled uniform
   negatives, optax Adam, jit-compiled step.  Gradients `psum` over the
   "data" mesh axis when run under shard_map (see train_step_dp).
@@ -49,7 +48,7 @@ log = get_logger(__name__)
 
 @dataclasses.dataclass
 class Interactions:
-    """Implicit-feedback matrix in padded-ragged (TPU-static) form.
+    """Implicit-feedback matrix in padded-ragged (static-shape) form.
 
     ``item_idx[u, j]`` = j-th item of user u (0-padded), valid where
     ``mask[u, j]``; ``confidence`` holds raw counts (0 where padded).
@@ -137,6 +136,11 @@ def synthetic_interactions(
 # --------------------------------------------------------------------------
 
 
+# ALS products pin true fp32: an H100 would otherwise be free to run them
+# in TF32 (about three decimal digits).
+_einsum = partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
+
+
 def _als_block_rows(n: int, md: int, d: int) -> int:
     """Row-block size keeping the half-step's live tensors ~<=1 GB: the
     batched normal matrices are (rows, D, D) and the gathered neighbor
@@ -168,7 +172,7 @@ def _als_solve(
     gram = jnp.dot(
         other.T, other, preferred_element_type=jnp.float32,
         precision=jax.lax.Precision.HIGHEST,
-    )                                                     # (D, D) MXU
+    )                                                     # (D, D)
     eye = reg * jnp.eye(d, dtype=other.dtype)
 
     def solve_rows(idx, conf, msk):
@@ -176,8 +180,8 @@ def _als_solve(
         w = jnp.where(msk, alpha * conf, 0.0)             # (r, md)
         cpref = jnp.where(msk, 1.0 + alpha * conf, 0.0)
         # A_r = G + λI + Σ_j w_rj y_rj y_rjᵀ  (batched outer-product)
-        a = gram[None] + jnp.einsum("nj,njd,nje->nde", w, y, y) + eye[None]
-        b = jnp.einsum("nj,njd->nd", cpref, y)            # (r, D)
+        a = gram[None] + _einsum("nj,njd,nje->nde", w, y, y) + eye[None]
+        b = _einsum("nj,njd->nd", cpref, y)               # (r, D)
         chol = jax.scipy.linalg.cho_factor(a, lower=True)
         return jax.scipy.linalg.cho_solve(chol, b)
 
@@ -247,25 +251,25 @@ def _als_pp_solve(
         y = other[idx]                                    # (r, md, D)
         w = jnp.where(msk, alpha * conf, 0.0)
         cpref = jnp.where(msk, 1.0 + alpha * conf, 0.0)
-        pred = jnp.einsum("njd,nd->nj", y, x)             # (r, md) cache
+        pred = _einsum("njd,nd->nj", y, x)                # (r, md) cache
         for s in range(0, d, k):
             ys = y[:, :, s : s + k]                       # (r, md, k)
             a_ss = (
                 gram[s : s + k, s : s + k][None]
-                + jnp.einsum("nj,nja,njb->nab", w, ys, ys)
+                + _einsum("nj,nja,njb->nab", w, ys, ys)
                 + eye_k[None]
             )
-            b_s = jnp.einsum("nj,nja->na", cpref, ys)
+            b_s = _einsum("nj,nja->na", cpref, ys)
             # (A x)_S = (G x)_S + sum_j w_j pred_j y_jS + lambda x_S
             ax_s = (
-                x @ gram[:, s : s + k]
-                + jnp.einsum("nj,nja->na", w * pred, ys)
+                _einsum("nd,da->na", x, gram[:, s : s + k])
+                + _einsum("nj,nja->na", w * pred, ys)
                 + reg * x[:, s : s + k]
             )
             chol = jax.scipy.linalg.cho_factor(a_ss, lower=True)
             delta = jax.scipy.linalg.cho_solve(chol, b_s - ax_s)  # (r, k)
             x = x.at[:, s : s + k].add(delta)
-            pred = pred + jnp.einsum("na,nja->nj", delta, ys)
+            pred = pred + _einsum("na,nja->nj", delta, ys)
         return x
 
     block = solve_block or _als_block_rows(n, md, max(k, d // 4))
@@ -350,10 +354,10 @@ def _als_solve_sharded_table(
     cpref = jnp.where(mask, 1.0 + alpha * confidence, 0.0)
     a = (
         gram[None]
-        + jnp.einsum("nj,njd,nje->nde", w, y, y)
+        + _einsum("nj,njd,nje->nde", w, y, y)
         + reg * jnp.eye(d, dtype=other_shard.dtype)[None]
     )
-    b = jnp.einsum("nj,njd->nd", cpref, y)
+    b = _einsum("nj,njd->nd", cpref, y)
     chol = jax.scipy.linalg.cho_factor(a, lower=True)
     return jax.scipy.linalg.cho_solve(chol, b)
 
@@ -363,7 +367,7 @@ def make_sharded_table_half_step(
 ):
     """Half-step with BOTH tables row-sharded over `axis` (nothing
     replicated): in + out factor tables live distributed; the exchange is
-    the embedding lookup's psum over ICI."""
+    the embedding lookup's psum over the interconnect."""
     from jax.sharding import PartitionSpec as P
 
     body = partial(_als_solve_sharded_table, reg=reg, alpha=alpha, axis=axis)
@@ -722,7 +726,7 @@ def evaluate_ranking_arrays(
     user_chunk: int = 4096,
     item_chunk: int = 131072,
 ) -> Dict[str, float]:
-    """recall@k / NDCG@k with array-native (TPU-scale) plumbing.
+    """recall@k / NDCG@k with array-native (device-scale) plumbing.
 
     Scoring runs through the retrieval stack's chunked MIPS top-k
     (ops/similarity.mips_topk_chunked): O(user_chunk x item_chunk) peak

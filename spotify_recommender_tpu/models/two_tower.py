@@ -1,19 +1,19 @@
 """Two-tower retrieval model with in-batch softmax negatives.
 
 BASELINE config 5 scope (the reference has no learned models at all).
-TPU-first shape:
+Shape:
 
 - Flax towers (query + item) mapping feature vectors → L2-normalized
-  embeddings; all dense layers are MXU matmuls, batch-major.
+  embeddings; all dense layers are batch-major matmuls.
 - InfoNCE with **in-batch negatives**: one (B, D)x(D, B) logits GEMM per
   step instead of per-negative scoring.
 - Data parallelism under `shard_map`: the batch is sharded over the mesh's
   "data" axis; each shard computes local query embeddings, `all_gather`s
-  item embeddings over ICI so every local query sees the **global** batch
-  as negatives, and gradients are `psum`'d — the canonical TPU two-tower
-  recipe.
+  item embeddings so every local query sees the **global** batch as
+  negatives, and gradients are `psum`'d — the canonical data-parallel
+  two-tower recipe.
 - Serving: embed the catalog once, then reuse the exact same retrieval
-  stack (ops/similarity.py oracle or the fused Pallas kernel) — learned
+  stack (ops/similarity.py oracle or the fused Triton kernel) — learned
   and hand-crafted embeddings share one serving path by construction.
 
 Training pairs: by default self-supervised same-genre positives from the
@@ -43,16 +43,13 @@ log = get_logger(__name__)
 class Tower(nn.Module):
     """MLP tower → embedding (L2-normalized by default).
 
-    `dtype` is the COMPUTE dtype (bf16 = single-pass MXU matmuls);
+    `dtype` is the COMPUTE dtype (bf16 = tensor-core matmuls);
     params always live in fp32 (flax param_dtype default) and the
     normalize epilogue upcasts, so training stays numerically stable —
-    the canonical TPU mixed-precision recipe.
+    the canonical mixed-precision recipe.
 
     `normalize=False` keeps the raw MLP output: embedding MAGNITUDE can
-    then encode item popularity, which cosine towers provably cannot
-    (docs/PERFORMANCE.md round-5 ceiling analysis: on the co-listen
-    benchmark workload the cosine item-item ceiling is ~0.17 recall@10
-    while raw-dot reaches ~0.25)."""
+    then encode item popularity, which cosine towers provably cannot."""
 
     hidden_dims: Tuple[int, ...]
     embedding_dim: int

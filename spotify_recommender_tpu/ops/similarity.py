@@ -3,8 +3,8 @@
 Re-states the reference's similarity math (identical on its GPU and CPU
 paths) as pure JAX:
 
-- dot products: one GEMV/GEMM on the MXU
-  (replaces cuBLAS SGEMV, reference Recommender.cu:217-223);
+- dot products: one GEMV/GEMM at `Precision.HIGHEST` (replaces cuBLAS
+  SGEMV, reference Recommender.cu:217-223; HIGHEST keeps an H100 off TF32);
 - cosine normalization with the 1e-8 zero-denominator guard and [-1, 1]
   clamp (reference Recommender.cu:62-77 GPU, :256-273 CPU);
 - top-k stays **on device** via `lax.top_k` — the reference copied the full
@@ -15,7 +15,8 @@ paths) as pure JAX:
   (reference skips the query index during heap fill, Recommender.cu:296).
 
 This module is the *oracle*: simple, obviously-correct XLA code that the
-fused Pallas kernel (ops/pallas/fused_topk.py) is validated against.
+fused Triton kernel (ops/pallas/fused_topk.py) is validated against, and
+the XLA retrieval paths of retrieval/path.py.
 """
 
 from __future__ import annotations
@@ -61,16 +62,16 @@ def cosine_scores_batched(
     """Cosine similarity of a query batch (B, F) against the catalog (N, F).
 
     One (B, F) x (F, N) GEMM — the batched generalization of the
-    reference's per-query SGEMV, shaped for the MXU.
+    reference's per-query SGEMV.
     """
     queries = jnp.asarray(queries, jnp.float32)
     features = jnp.asarray(features, jnp.float32)
     if norms is None:
         norms = jnp.linalg.norm(features, axis=1)
     q_norms = jnp.linalg.norm(queries, axis=1)
-    # HIGHEST pins true-fp32 accumulation: the JAX default truncates matmul
-    # inputs to bf16, which breaks score parity with the reference's SGEMV
-    # (~1e-3 error). Retrieval is HBM-bound, so the extra MXU passes are free.
+    # HIGHEST pins true-fp32 products: the default lets an H100 run fp32
+    # matmuls in TF32, which breaks score parity with the reference's SGEMV
+    # (~1e-3 error).
     dots = jnp.dot(
         queries,
         features.T,
@@ -120,6 +121,7 @@ def exact_topk_chunked(
     k: int = 10,
     eps: float = COSINE_EPS,
     chunk: int = 131072,
+    num_valid: Optional[jnp.ndarray] = None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Exact retrieval as a `lax.scan` over catalog chunks.
 
@@ -128,7 +130,7 @@ def exact_topk_chunked(
     naive path wants 40 GB).  Results are identical to `exact_topk`:
     per-chunk top-k + merge preserves the lowest-index tie rule because
     chunks are processed in ascending index order and `merge_topk` favors
-    the earlier list.
+    the earlier list.  Rows >= `num_valid` (default N) score -inf.
     """
     queries = jnp.asarray(queries, jnp.float32)
     features = jnp.asarray(features, jnp.float32)
@@ -136,6 +138,7 @@ def exact_topk_chunked(
         norms = jnp.linalg.norm(features, axis=1)
     n = features.shape[0]
     b = queries.shape[0]
+    limit = n if num_valid is None else jnp.minimum(num_valid, n)
     chunk = min(chunk, max(k, n))
     nchunks = -(-n // chunk)
     npad = nchunks * chunk
@@ -155,7 +158,7 @@ def exact_topk_chunked(
         fch, nch, off = xs
         scores = cosine_scores_batched(queries, fch, nch, eps)
         gcols = off + jnp.arange(chunk, dtype=jnp.int32)
-        bad = (gcols[None, :] >= n) | (gcols[None, :] == excl[:, None])
+        bad = (gcols[None, :] >= limit) | (gcols[None, :] == excl[:, None])
         scores = jnp.where(bad, NEG_INF, scores)
         ch_s, ch_pos = jax.lax.top_k(scores, k)
         best_s, best_i = merge_topk(
@@ -171,40 +174,6 @@ def exact_topk_chunked(
         body, init, (feats_c, norms_c, offsets)
     )
     return best_s, best_i
-
-
-@partial(jax.jit, static_argnames=("k", "eps"))
-def exact_topk_iterative(
-    queries: jnp.ndarray,
-    features: jnp.ndarray,
-    norms: Optional[jnp.ndarray] = None,
-    exclude_rows: Optional[jnp.ndarray] = None,
-    k: int = 10,
-    eps: float = COSINE_EPS,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Oracle-exact top-k via k masked argmax passes.
-
-    Bit-identical to `exact_topk` by construction — same
-    `cosine_scores_batched` values, and first-occurrence argmax reproduces
-    lax.top_k's lowest-index tie rule — but WITHOUT lax.top_k, whose cost
-    on TPU grows with the full catalog width (~100 ms at N=1M) regardless
-    of batch size.  k sequential (max + first-argmax + mask) passes over
-    the (B, N) score matrix are ~50x cheaper in the small-batch regime
-    this serves: the certified tier's per-query oracle fallback.
-    """
-    scores = cosine_scores_batched(queries, features, norms, eps)
-    if exclude_rows is not None:
-        scores = _mask_self(scores, exclude_rows)
-    b, n = scores.shape
-    cols = jnp.arange(n, dtype=jnp.int32)[None, :]
-    out_s, out_i = [], []
-    for _ in range(k):
-        m = jnp.max(scores, axis=1)                         # (B,)
-        am = jnp.argmax(scores, axis=1).astype(jnp.int32)   # first max
-        out_s.append(m)
-        out_i.append(am)
-        scores = jnp.where(cols == am[:, None], NEG_INF, scores)
-    return jnp.stack(out_s, axis=1), jnp.stack(out_i, axis=1)
 
 
 @partial(jax.jit, static_argnames=("k", "chunk"))
@@ -277,10 +246,15 @@ def exact_topk(
     exclude_rows: Optional[jnp.ndarray] = None,
     k: int = 10,
     eps: float = COSINE_EPS,
+    num_valid: Optional[jnp.ndarray] = None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Fused-by-XLA exact retrieval: scores + top-k in one jit program.
 
-    Returns (top_scores (B, k), top_indices (B, k)).
+    Returns (top_scores (B, k), top_indices (B, k)).  Rows >= `num_valid`
+    (default N) score -inf.
     """
     scores = cosine_scores_batched(queries, features, norms, eps)
+    if num_valid is not None:
+        cols = jnp.arange(scores.shape[1], dtype=jnp.int32)[None, :]
+        scores = jnp.where(cols >= num_valid, NEG_INF, scores)
     return topk_scores(scores, k, exclude_rows)

@@ -1,9 +1,9 @@
 """Top-k merge primitives for blockwise and sharded retrieval.
 
 The reference selects top-N with a host-side min-heap over the full
-similarity vector (reference Recommender.cu:293-315).  On TPU the catalog is
-processed in tiles (Pallas) and/or shards (mesh axis "catalog"), so top-k
-becomes: per-tile/per-shard partial top-k → merge.  Merging two top-k lists
+similarity vector (reference Recommender.cu:293-315).  Here the catalog is
+processed in chunks, kernel segments and/or shards (mesh axis "catalog"),
+so top-k becomes: per-part partial top-k → merge.  Merging two top-k lists
 is itself a top-k over their concatenation, which keeps `lax.top_k`'s
 lowest-index-wins tie rule end-to-end, so results are invariant to tiling
 and sharding layout (the determinism requirement of SURVEY.md §7 step 3).
@@ -43,13 +43,12 @@ def merge_topk_deterministic(
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Top-k over (B, C) candidates with *global-index* tie-breaking.
 
-    `lax.top_k` breaks ties by candidate position, which after a shard
-    gather is shard order — not necessarily global-index order.  Re-key the
-    sort so equal scores prefer the smaller global index, regardless of the
-    candidate layout: sort by (-score, idx) lexicographically.
+    Sorts by (-score, idx) lexicographically, so equal scores prefer the
+    smaller global index whatever the candidate layout (shard order,
+    kernel segments) and whatever tie order the backend's `lax.top_k`
+    keeps.  Adding 0.0 first folds -0.0 into +0.0, so the two zeros tie.
     """
-    order = jnp.argsort(idx, axis=-1, stable=True)
-    idx_sorted = jnp.take_along_axis(idx, order, axis=-1)
-    scores_sorted = jnp.take_along_axis(scores, order, axis=-1)
-    top_scores, pos = jax.lax.top_k(scores_sorted, k)
-    return top_scores, jnp.take_along_axis(idx_sorted, pos, axis=-1)
+    neg, idx_sorted = jax.lax.sort(
+        (-(scores + 0.0), idx), dimension=-1, num_keys=2
+    )
+    return -neg[..., :k], idx_sorted[..., :k]

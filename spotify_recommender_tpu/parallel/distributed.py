@@ -1,10 +1,10 @@
 """Multi-host bootstrap + mesh construction.
 
 The reference has no distributed backend at all (SURVEY.md §2: the only
-data movement is cudaMemcpy within one process).  TPU-native equivalent:
-`jax.distributed.initialize()` wires all hosts of a slice into one JAX
-runtime; collectives compiled by XLA then ride ICI within a slice and DCN
-across slices.  This module wraps the bootstrap with fail-fast diagnostics
+data movement is cudaMemcpy within one process).  Here
+`jax.distributed.initialize()` wires all hosts into one JAX runtime;
+collectives compiled by XLA then ride NVLink within a host and the
+network across hosts.  This module wraps the bootstrap with fail-fast diagnostics
 (SURVEY.md §5 failure-detection: no elastic recovery — a missing host is a
 configuration error, reported clearly and immediately).
 """
@@ -33,9 +33,8 @@ def initialize_multihost(
 ) -> None:
     """Initialize the multi-host JAX runtime (idempotent).
 
-    On TPU pods the arguments are auto-detected from the environment; on
-    CPU/GPU fleets pass them explicitly (or via JAX_COORDINATOR_ADDRESS /
-    JAX_NUM_PROCESSES / JAX_PROCESS_ID).
+    Pass the arguments explicitly (or via JAX_COORDINATOR_ADDRESS /
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID); nothing detects a cluster.
     """
     global _initialized
     # IMPORTANT: probe with jax.distributed.is_initialized(), never
@@ -87,7 +86,7 @@ def global_mesh(
     Default layout: all devices on "catalog" (row-sharded corpus — the
     retrieval workload's natural TP axis); pass axis_sizes to split, e.g.
     (num_hosts, devices_per_host) so the catalog axis stays intra-host
-    (ICI) and data parallelism crosses hosts (DCN) — the bandwidth-correct
+    (NVLink) and data parallelism crosses hosts — the bandwidth-correct
     orientation, since per-shard top-k candidates are tiny compared to
     gradient/batch traffic.
     """

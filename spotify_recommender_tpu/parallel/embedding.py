@@ -3,14 +3,14 @@
 The reference has no embeddings (hand-crafted features only, SURVEY.md §2);
 this implements the BASELINE config-4 scope: item/user embedding tables too
 large for one chip's HBM are row-sharded over the mesh's "catalog" axis and
-looked up with an on-ICI exchange.
+looked up with an on-device collective exchange.
 
 Exchange strategy: every shard gathers the requested rows it owns (ids are
 replicated; ownership = contiguous row ranges) and contributes zeros for
 the rest; a `psum` over the axis assembles the full (B, D) result.  For
 B·D lookup tensors this moves the same bytes as an all-to-all on a ring
 but compiles to XLA's fastest reduction collective and needs no ragged
-bookkeeping — the TPU-idiomatic substitute for parameter-server style
+bookkeeping — the collective-based substitute for parameter-server style
 gather (SURVEY.md §5 "distributed communication backend").
 
 The custom-VJP scatter-add ensures gradients flow back only to the owning
@@ -67,7 +67,7 @@ def sharded_ids_lookup(
 
     Exchange = all_gather(ids) [cheap: int32] → masked local gather →
     **psum_scatter** back to the owner — the reduce-scatter form of the
-    embedding all-to-all, riding ICI with XLA's fused collective.  Returns
+    embedding all-to-all, as one XLA collective.  Returns
     embeddings for the local id shard: ids_shard.shape + (D,).
     """
     rows = table_shard.shape[0]

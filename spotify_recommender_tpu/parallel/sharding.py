@@ -2,13 +2,13 @@
 
 The reference is strictly single-device (`cudaSetDevice(0)`, reference
 Recommender.cu:124) with no communication backend (SURVEY.md §2).  The
-TPU-native scale-out plan (SURVEY.md §7 step 3):
+scale-out plan (SURVEY.md §7 step 3):
 
 - the catalog's N axis is sharded over mesh axis "catalog" (this workload's
   natural tensor parallelism) with `NamedSharding`;
 - each device scores its rows and selects a **local** top-k with local→global
-  index translation — only (k scores + k indices) per query per shard ride
-  the ICI, never the (B, N) score matrix;
+  index translation — only (k scores + k indices) per query per shard
+  cross the interconnect, never the (B, N) score matrix;
 - an `all_gather` over "catalog" collects the per-shard candidates and a
   final deterministic merge selects the global top-k, tie-breaking by global
   index so results are invariant to the shard layout;
@@ -21,9 +21,8 @@ enter a top-k.
 
 from __future__ import annotations
 
-import dataclasses
 from functools import partial
-from typing import TYPE_CHECKING, Optional, Tuple
+from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -32,11 +31,12 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from spotify_recommender_tpu.core.config import COSINE_EPS
 from spotify_recommender_tpu.core.logging import get_logger
-
-if TYPE_CHECKING:
-    from spotify_recommender_tpu.core.config import RetrievalConfig
-from spotify_recommender_tpu.ops import similarity
 from spotify_recommender_tpu.ops.topk import merge_topk_deterministic
+from spotify_recommender_tpu.retrieval.path import (
+    KERNEL,
+    choose_path,
+    score_topk,
+)
 
 log = get_logger(__name__)
 
@@ -50,41 +50,46 @@ def _pad_to_multiple(x: np.ndarray, multiple: int) -> np.ndarray:
     return np.concatenate([x, pad_block], axis=0)
 
 
-def _local_score_topk(
+def _local_topk(
     queries: jnp.ndarray,       # (B, F) replicated
     features: jnp.ndarray,      # (N_local, F) this shard's rows
     norms: jnp.ndarray,         # (N_local,)
     exclude_rows: jnp.ndarray,  # (B,) global row ids, -1 = none
     valid_rows: jnp.ndarray,    # () int32: global N (pad rows >= this)
+    *,
     k: int,
     eps: float,
+    path: str,
+    interpret: bool,
     axis_name: str,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Per-shard body run under shard_map."""
+    """Per-shard body run under shard_map: the shard's top-k on the chosen
+    path (retrieval/path.py), in global row ids, then the all_gather of
+    (B, k) candidates and the deterministic merge."""
     shard = jax.lax.axis_index(axis_name)
     n_local = features.shape[0]
-    offset = shard * n_local
-
-    scores = similarity.cosine_scores_batched(queries, features, norms, eps)
-    global_cols = offset + jnp.arange(n_local, dtype=jnp.int32)
-    # mask padding rows and the per-query excluded row
-    pad_mask = global_cols[None, :] >= valid_rows
-    excl_mask = global_cols[None, :] == exclude_rows.astype(jnp.int32)[:, None]
-    scores = jnp.where(pad_mask | excl_mask, similarity.NEG_INF, scores)
-
-    k_local = min(k, n_local)
-    local_scores, local_idx = jax.lax.top_k(scores, k_local)
-    cand_scores = jax.lax.all_gather(
-        local_scores, axis_name, axis=1, tiled=True
-    )  # (B, n_shards * k_local)
-    cand_idx = jax.lax.all_gather(
-        offset + local_idx.astype(jnp.int32), axis_name, axis=1, tiled=True
+    offset = (shard * n_local).astype(jnp.int32)
+    excl = exclude_rows.astype(jnp.int32)
+    # global exclusions and valid count, in this shard's frame
+    excl_local = jnp.where(
+        (excl >= offset) & (excl < offset + n_local), excl - offset, -1
     )
-    return merge_topk_deterministic(cand_scores, cand_idx, k)
+    valid_local = jnp.clip(valid_rows - offset, 0, n_local).astype(jnp.int32)
+    local_s, local_i = score_topk(
+        queries, features, norms, excl_local, valid_local,
+        k=k, eps=eps, path=path, interpret=interpret,
+    )
+    local_i = jnp.where(local_i < 0, -1, offset + local_i)
+    cand_s = jax.lax.all_gather(local_s, axis_name, axis=1, tiled=True)
+    cand_i = jax.lax.all_gather(local_i, axis_name, axis=1, tiled=True)
+    return merge_topk_deterministic(cand_s, cand_i, k)
 
 
 @partial(
-    jax.jit, static_argnames=("k", "eps", "mesh", "axis_name", "data_axis")
+    jax.jit,
+    static_argnames=(
+        "k", "eps", "mesh", "axis_name", "data_axis", "path", "interpret",
+    ),
 )
 def sharded_topk_retrieve(
     queries: jnp.ndarray,
@@ -98,6 +103,8 @@ def sharded_topk_retrieve(
     axis_name: str = "catalog",
     eps: float = COSINE_EPS,
     data_axis: Optional[str] = None,
+    path: str = "xla",
+    interpret: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Row-sharded exact top-k over the mesh (see module docstring).
 
@@ -106,7 +113,8 @@ def sharded_topk_retrieve(
     same catalog-sharded retrieval on its batch slice, with no
     cross-group communication."""
     body = partial(
-        _local_score_topk, k=k, eps=eps, axis_name=axis_name
+        _local_topk, k=k, eps=eps, path=path, interpret=interpret,
+        axis_name=axis_name,
     )
     qspec = P(data_axis, None) if data_axis else P()
     espec = P(data_axis) if data_axis else P()
@@ -126,145 +134,12 @@ def sharded_topk_retrieve(
     return fn(queries, features, norms, exclude_rows, valid_rows)
 
 
-def _local_fused_topk(
-    queries: jnp.ndarray,       # (B, F) replicated
-    features_t: jnp.ndarray,    # (F, N_local) this shard, kernel layout
-    norms: jnp.ndarray,         # (1, N_local)
-    exclude_rows: jnp.ndarray,  # (B,) global row ids, -1 = none
-    valid_rows: jnp.ndarray,    # (1, 1) int32 global N
-    *,
-    k: int,
-    tq: int,
-    tc: int,
-    eps: float,
-    exact: bool,
-    interpret: bool,
-    axis_name: str,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """shard_map body running the fused Pallas kernel on the local shard,
-    then allgather + deterministic merge — the production multi-chip path
-    (same kernel as single-chip; only the index bookkeeping differs)."""
-    from spotify_recommender_tpu.ops.pallas.fused_topk import _prepare_and_call
-
-    shard = jax.lax.axis_index(axis_name)
-    n_local = features_t.shape[1]
-    offset = (shard * n_local).astype(jnp.int32)
-    # translate global exclusions / valid count into this shard's frame
-    excl_local = jnp.where(
-        (exclude_rows >= offset) & (exclude_rows < offset + n_local),
-        exclude_rows - offset,
-        -1,
-    )
-    valid_local = jnp.clip(valid_rows - offset, 0, n_local).astype(jnp.int32)
-    k_local = min(k, n_local)
-    local_s, local_i = _prepare_and_call(
-        queries,
-        excl_local,
-        features_t,
-        norms,
-        valid_local,
-        k=k_local,
-        tq=tq,
-        tc=tc,
-        eps=eps,
-        exact=exact,
-        interpret=interpret,
-    )
-    cand_s = jax.lax.all_gather(local_s, axis_name, axis=1, tiled=True)
-    cand_i = jax.lax.all_gather(
-        offset + local_i.astype(jnp.int32), axis_name, axis=1, tiled=True
-    )
-    return merge_topk_deterministic(cand_s, cand_i, k)
-
-
-def _local_certified_topk(
-    queries: jnp.ndarray,       # (B, F) replicated
-    features_t2: jnp.ndarray,   # (planes*F, N_local) bf16 split planes
-    norms_row: jnp.ndarray,     # (1, N_local)
-    features32: jnp.ndarray,    # (N_local, F) fp32 rows (rerank/fallback)
-    norms1d: jnp.ndarray,       # (N_local,)
-    exclude_rows: jnp.ndarray,  # (B,) global row ids, -1 = none
-    valid_rows: jnp.ndarray,    # (1, 1) int32 global N
-    *,
-    k: int,
-    c: int,
-    tq: int,
-    tc: int,
-    w: int,
-    eps: float,
-    ceps: float,
-    cap: int,
-    bitexact: bool,
-    interpret: bool,
-    axis_name: str,
-    scan: str = "v3",
-    depth: int = 3,
-    esc: int = 0,
-    rn_min: float = 0.0,
-    sum_axes: Tuple[str, ...] = (),
-) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """shard_map body: the CERTIFIED tier per shard (scan -> in-kernel
-    top-C -> bitwise rerank -> certificate -> in-jit oracle fallback, all
-    local), then allgather + deterministic merge.  Each shard's local
-    top-k is exact, so the merged global top-k is exact; per-shard
-    fallback-capacity overflows are psum'd out for the (rare) host-side
-    redo through the oracle sharded path.
-
-    Runs the SAME kernel generation as the single-chip CertifiedRetriever
-    (scan="v3" epilogue-free bin scan by default, configurable depth/W) —
-    the tuning flows from one RetrievalConfig through
-    `build_certified_layout`, so multi-chip never lags the single-chip
-    kernel.  `rn_min` is the GLOBAL minimum nonzero catalog norm: using
-    it per shard is conservative (a shard whose local minimum is larger
-    can only fall back more often, never certify unsoundly)."""
-    from spotify_recommender_tpu.ops.pallas.fused_topk import (
-        _certified_retrieve,
-    )
-
-    shard = jax.lax.axis_index(axis_name)
-    n_local = features_t2.shape[1]
-    offset = (shard * n_local).astype(jnp.int32)
-    excl = exclude_rows.astype(jnp.int32)
-    excl_local = jnp.where(
-        (excl >= offset) & (excl < offset + n_local), excl - offset, -1
-    )
-    valid_local = jnp.clip(valid_rows - offset, 0, n_local).astype(jnp.int32)
-    k_local = min(k, n_local)
-    local_s, local_i, ok, overflow, _nesc = _certified_retrieve(
-        queries,
-        features_t2,
-        norms_row,
-        features32,
-        norms1d,
-        excl_local,
-        valid_local,
-        jnp.int32(queries.shape[0]),
-        jnp.float32(rn_min),
-        k=k_local, c=min(max(c, k_local), depth * w), tq=tq, tc=tc, w=w,
-        eps=eps, ceps=ceps, fallback_cap=cap,
-        bitexact_rerank=bitexact, interpret=interpret,
-        scan=scan, depth=depth, esc=esc,
-    )
-    cand_s = jax.lax.all_gather(local_s, axis_name, axis=1, tiled=True)
-    cand_i = jax.lax.all_gather(
-        offset + local_i.astype(jnp.int32), axis_name, axis=1, tiled=True
-    )
-    merged_s, merged_i = merge_topk_deterministic(cand_s, cand_i, k)
-    # overflow/nfail are summed over every mesh axis in play so their
-    # out_spec stays fully replicated even under 2-D data x catalog runs
-    red_axes = sum_axes or (axis_name,)
-    any_overflow = jax.lax.psum(overflow.astype(jnp.int32), red_axes)
-    nfail = jax.lax.psum(jnp.sum((~ok).astype(jnp.int32)), red_axes)
-    return merged_s, merged_i, any_overflow, nfail
-
-
 class ShardedCatalog:
     """Device-resident, row-sharded catalog features + norms.
 
-    Backends: ``use_certified=True`` runs the full certified-exact tier
-    per shard (production multi-chip path — same exactness proof as
-    single-chip); ``use_pallas=True`` runs the single-phase fused kernel
-    per shard; otherwise the jnp oracle scores inside shard_map.
+    Each shard runs the path that retrieval/path.choose_path picks for its
+    own (N_local, F, B_local, k); `interpret=True` (tests only) runs the
+    Triton kernel per shard in interpret mode instead.
     """
 
     def __init__(
@@ -274,26 +149,57 @@ class ShardedCatalog:
         mesh: Mesh,
         axis_name: str = "catalog",
         eps: float = COSINE_EPS,
-        use_pallas: bool = False,
-        use_certified: bool = False,
-        query_tile: Optional[int] = None,
-        catalog_tile: Optional[int] = None,
-        exact: bool = True,
+        use_kernel: bool = True,
         interpret: bool = False,
-        prefilter: Optional[int] = None,
         data_axis: Optional[str] = None,
-        config: Optional["RetrievalConfig"] = None,
     ) -> None:
-        from spotify_recommender_tpu.core.config import RetrievalConfig
+        n_shards = mesh.shape[axis_name]
+        feats = _pad_to_multiple(np.asarray(features, np.float32), n_shards)
+        nrm = _pad_to_multiple(np.asarray(norms, np.float32), n_shards)
+        self._setup(
+            mesh, axis_name, data_axis, eps, use_kernel, interpret,
+            num_items=features.shape[0],
+            features=jax.device_put(
+                feats, NamedSharding(mesh, P(axis_name, None))
+            ),
+            norms=jax.device_put(nrm, NamedSharding(mesh, P(axis_name))),
+        )
 
-        config = config or RetrievalConfig()
-        if query_tile is not None:
-            config = dataclasses.replace(config, query_tile=query_tile)
-        if catalog_tile is not None:
-            config = dataclasses.replace(config, catalog_tile=catalog_tile)
-        if prefilter is not None:
-            config = dataclasses.replace(config, prefilter=prefilter)
-        self.config = config
+    @classmethod
+    def from_artifact(
+        cls,
+        artifact,
+        mesh: Mesh,
+        axis_name: str = "catalog",
+        data_axis: Optional[str] = None,
+        eps: float = COSINE_EPS,
+        use_kernel: bool = True,
+        interpret: bool = False,
+    ) -> "ShardedCatalog":
+        """Sharded retrieval straight from an OCDBT artifact
+        (data/sharded_catalog.load_sharded_catalog): its mesh-sharded
+        arrays are served as they were restored, so the full feature
+        matrix is never materialized on any single host.  This is the
+        multi-host path past the reference's single-GPU memory wall
+        (reference ARCHITECTURE.md:305-309)."""
+        n_shards = mesh.shape[axis_name]
+        rows = artifact.features.shape[0]
+        if rows % n_shards:
+            raise ValueError(
+                f"artifact rows {rows} not divisible by mesh axis "
+                f"{axis_name}={n_shards}"
+            )
+        self = cls.__new__(cls)
+        self._setup(
+            mesh, axis_name, data_axis, eps, use_kernel, interpret,
+            num_items=artifact.num_items,
+            features=artifact.features,
+            norms=artifact.norms,
+        )
+        return self
+
+    def _setup(self, mesh, axis_name, data_axis, eps, use_kernel, interpret,
+               *, num_items, features, norms) -> None:
         self.mesh = mesh
         self.axis_name = axis_name
         # 2-D data x catalog parallelism: with `data_axis` set (and the
@@ -305,206 +211,28 @@ class ShardedCatalog:
             data_axis is not None and mesh.shape.get(data_axis, 1) > 1
         ) else None
         self.eps = eps
-        self.use_pallas = use_pallas
-        self.use_certified = use_certified
-        self.exact = exact
+        self.use_kernel = use_kernel
         self.interpret = interpret
-        self.prefilter = config.prefilter
-        self.num_items = features.shape[0]
-        n_shards = mesh.shape[axis_name]
-        feats = np.asarray(features, np.float32)
-        nrm_1d = np.asarray(norms, np.float32)
-        if use_certified:
-            from spotify_recommender_tpu.ops.pallas.fused_topk import (
-                build_certified_layout,
-            )
-
-            # SAME layout builder (and therefore the same kernel
-            # generation + tuning) as the single-chip CertifiedRetriever
-            lay = build_certified_layout(
-                feats, nrm_1d, config, n_shards=n_shards
-            )
-            self.tq = config.query_tile
-            self.tc = lay.tc
-            self.w = lay.w
-            self.scan = lay.scan
-            self.depth = lay.depth
-            self.esc = (
-                config.scan_escalate
-                if (lay.scan == "v3" and config.scan_escalate > lay.depth)
-                else 0
-            )
-            self.rn_min = lay.rn_min
-            self.features = jax.device_put(
-                jnp.asarray(lay.ft, jnp.bfloat16),
-                NamedSharding(mesh, P(None, axis_name)),
-            )
-            self.norms = jax.device_put(
-                lay.nrm_row, NamedSharding(mesh, P(None, axis_name))
-            )
-            self.features32 = jax.device_put(
-                lay.feats32, NamedSharding(mesh, P(axis_name, None))
-            )
-            self.norms1d = jax.device_put(
-                lay.norms1d, NamedSharding(mesh, P(axis_name))
-            )
-            self.n_local = lay.np_pad // n_shards
-            self.cap = max(1, min(32, 128_000_000 // max(1, self.n_local)))
-        elif use_pallas:
-            query_tile = config.query_tile
-            catalog_tile = config.catalog_tile
-            # per-shard kernel layout: (F, Np) with Np a multiple of
-            # n_shards * tc so every shard's slice tiles evenly
-            self.tc = min(catalog_tile, 128 * max(1, -(-self.num_items // (128 * n_shards))))
-            self.tq = query_tile
-            chunk = n_shards * self.tc
-            np_pad = -(-self.num_items // chunk) * chunk
-            if not exact:
-                feats = feats / np.maximum(nrm_1d, 1e-30)[:, None]
-            ft = np.zeros((feats.shape[1], np_pad), np.float32)
-            ft[:, : self.num_items] = feats.T
-            nrm = np.zeros((1, np_pad), np.float32)
-            nrm[0, : self.num_items] = nrm_1d
-            self.features = jax.device_put(
-                ft, NamedSharding(mesh, P(None, axis_name))
-            )
-            self.norms = jax.device_put(
-                nrm, NamedSharding(mesh, P(None, axis_name))
-            )
-        else:
-            feats_p = _pad_to_multiple(feats, n_shards)
-            nrm_p = _pad_to_multiple(nrm_1d, n_shards)
-            self.features = jax.device_put(
-                feats_p, NamedSharding(mesh, P(axis_name, None))
-            )
-            self.norms = jax.device_put(
-                nrm_p, NamedSharding(mesh, P(axis_name))
-            )
-        self._valid = jnp.asarray(self.num_items, jnp.int32)
+        self.num_items = num_items
+        self.features = features
+        self.norms = norms
+        self.n_local = features.shape[0] // mesh.shape[axis_name]
+        self._valid = jnp.asarray(num_items, jnp.int32)
         log.info(
-            "sharded catalog: %d items over %d '%s' shards (backend=%s)",
-            self.num_items,
-            n_shards,
-            axis_name,
-            "certified" if use_certified
-            else ("pallas" if use_pallas else "xla"),
+            "sharded catalog: %d items over %d '%s' shards (%d rows each)",
+            num_items, mesh.shape[axis_name], axis_name, self.n_local,
         )
 
-    @classmethod
-    def from_artifact(
-        cls,
-        artifact,
-        mesh: Mesh,
-        axis_name: str = "catalog",
-        data_axis: Optional[str] = None,
-        config: Optional["RetrievalConfig"] = None,
-        interpret: bool = False,
-    ) -> "ShardedCatalog":
-        """Certified sharded retrieval straight from an OCDBT artifact
-        (data/sharded_catalog.load_sharded_catalog) — the kernel layouts
-        (bf16x2 split planes, norms row) are built PER SHARD on device
-        via shard_map, so the full feature matrix is never materialized
-        on any single host: the artifact restores mesh-sharded and stays
-        mesh-sharded.  This is the multi-host path past the reference's
-        single-GPU memory wall (reference ARCHITECTURE.md:305-309)."""
-        from spotify_recommender_tpu.core.config import RetrievalConfig
-
-        config = config or RetrievalConfig()
-        self = cls.__new__(cls)
-        self.config = config
-        self.mesh = mesh
-        self.axis_name = axis_name
-        self.data_axis = data_axis if (
-            data_axis is not None and mesh.shape.get(data_axis, 1) > 1
-        ) else None
-        self.eps = config.eps
-        self.use_pallas = False
-        self.use_certified = True
-        self.exact = True
-        self.interpret = interpret
-        self.prefilter = config.prefilter
-        self.num_items = artifact.num_items
-        n_shards = mesh.shape[axis_name]
-        rows, f = artifact.features.shape
-        if rows % n_shards:
-            raise ValueError(
-                f"artifact rows {rows} not divisible by mesh axis "
-                f"{axis_name}={n_shards}"
-            )
-        n_local = rows // n_shards
-        if n_local % 512:
-            raise ValueError(
-                f"per-shard rows {n_local} must be a multiple of 512 "
-                "(oracle-fallback block size); re-save the artifact with "
-                f"shard_multiple a multiple of {512 * n_shards}"
-            )
-        # largest power-of-two tile <= catalog_tile that divides the shard
-        tc = 512
-        for cand_tc in (8192, 4096, 2048, 1024, 512):
-            if cand_tc <= config.catalog_tile and n_local % cand_tc == 0:
-                tc = cand_tc
-                break
-        self.tq = config.query_tile
-        self.tc = tc
-        self.scan = config.scan
-        self.depth = config.scan_depth if config.scan == "v3" else 3
-        self.esc = (
-            config.scan_escalate
-            if (config.scan == "v3" and config.scan_escalate > self.depth)
-            else 0
+    def path_for(self, b: int, k: int) -> str:
+        """The path each shard runs for a (b, k) call."""
+        if self.interpret:
+            return KERNEL
+        n_data = self.mesh.shape[self.data_axis] if self.data_axis else 1
+        return choose_path(
+            self.mesh.devices.flat[0].platform, self.n_local,
+            self.features.shape[1], max(1, b // n_data), k,
+            use_kernel=self.use_kernel,
         )
-        nw = max(1, config.scan_bins // 128) if config.scan_bins else (
-            1 if config.scan == "v3" else 4
-        )
-        while nw > 1 and (tc // 128) % nw:
-            nw //= 2
-        self.w = 128 * nw
-        planes = 4 if (config.split_planes != 2 and 4 * f <= 128) else 2
-
-        def relayout(feats_l, norms_l):
-            # per-shard kernel layout entirely on device: prenormalized
-            # bf16x2 split planes (same math as build_certified_layout)
-            from spotify_recommender_tpu.ops.pallas.fused_topk import (
-                _split_bf16x2,
-            )
-
-            unit = feats_l / jnp.maximum(norms_l, jnp.float32(1e-30))[:, None]
-            hi, lo = _split_bf16x2(unit, interpret=interpret)
-            parts = (
-                [hi.T, lo.T] if planes == 2 else [hi.T, lo.T, hi.T, lo.T]
-            )
-            return jnp.concatenate(parts, axis=0), norms_l[None, :]
-
-        fn = jax.shard_map(
-            relayout,
-            mesh=mesh,
-            in_specs=(P(axis_name, None), P(axis_name)),
-            out_specs=(P(None, axis_name), P(None, axis_name)),
-            check_vma=False,
-        )
-        self.features, self.norms = fn(artifact.features, artifact.norms)
-        # fp32 rerank/fallback buffers: the artifact's own sharded arrays
-        self.features32 = artifact.features
-        self.norms1d = artifact.norms
-        rn_min = float(
-            jax.jit(
-                lambda x: jnp.min(jnp.where(x > 0, x, jnp.inf))
-            )(artifact.norms)
-        )
-        self.rn_min = (
-            rn_min if np.isfinite(rn_min) else float(np.finfo(np.float32).max)
-        )
-        self.n_local = n_local
-        self.cap = max(1, min(32, 128_000_000 // max(1, n_local)))
-        self._valid = jnp.asarray(self.num_items, jnp.int32)
-        log.info(
-            "sharded catalog from artifact: %d items over %d '%s' shards "
-            "(certified, device-side relayout, scan=%s depth=%d esc=%d "
-            "W=%d tc=%d)",
-            self.num_items, n_shards, axis_name, self.scan, self.depth,
-            self.esc, self.w, tc,
-        )
-        return self
 
     def retrieve(
         self,
@@ -512,6 +240,7 @@ class ShardedCatalog:
         k: int,
         exclude_rows: Optional[jnp.ndarray] = None,
     ) -> Tuple[jnp.ndarray, jnp.ndarray]:
+        queries = jnp.atleast_2d(jnp.asarray(queries, jnp.float32))
         b = queries.shape[0]
         if exclude_rows is None:
             exclude_rows = jnp.full((b,), -1, jnp.int32)
@@ -521,129 +250,17 @@ class ShardedCatalog:
                 f"batch {b} must divide the '{self.data_axis}' axis "
                 f"size {n_data}"
             )
-        b_local = b // n_data
-        qspec = P(self.data_axis, None) if self.data_axis else P()
-        espec = P(self.data_axis) if self.data_axis else P()
-        if self.use_certified:
-            from spotify_recommender_tpu.ops.pallas.fused_topk import (
-                BF16X2_EPS,
-            )
-
-            body = partial(
-                _local_certified_topk,
-                k=k,
-                c=self.prefilter,
-                tq=min(self.tq, -(-b_local // 8) * 8),
-                tc=self.tc,
-                w=self.w,
-                eps=self.eps,
-                ceps=float(max(self.config.certify_eps, BF16X2_EPS)),
-                cap=self.cap,
-                # bitwise rerank==oracle holds only for big-batch matmul
-                # shapes (see CertifiedRetriever); small per-shard
-                # batches keep the RERANK_ULP gaps check
-                bitexact=jax.default_backend() == "tpu" and b_local > 16,
-                interpret=self.interpret,
-                axis_name=self.axis_name,
-                scan=self.scan,
-                depth=self.depth,
-                esc=self.esc,
-                rn_min=self.rn_min,
-                sum_axes=(
-                    (self.data_axis, self.axis_name)
-                    if self.data_axis else ()
-                ),
-            )
-            fn = jax.shard_map(
-                body,
-                mesh=self.mesh,
-                in_specs=(
-                    qspec,                     # queries (repl / data-shard)
-                    P(None, self.axis_name),   # bf16x2 planes col-sharded
-                    P(None, self.axis_name),   # norms row col-sharded
-                    P(self.axis_name, None),   # fp32 rows row-sharded
-                    P(self.axis_name),         # norms1d row-sharded
-                    espec,                     # exclusions follow queries
-                    P(),                       # valid count replicated
-                ),
-                out_specs=(qspec, qspec, P(), P()),
-                check_vma=False,
-            )
-            s, i, overflow, nfail = fn(
-                jnp.atleast_2d(jnp.asarray(queries, jnp.float32)),
-                self.features,
-                self.norms,
-                self.features32,
-                self.norms1d,
-                exclude_rows,
-                jnp.full((1, 1), self.num_items, jnp.int32),
-            )
-            overflow_h, nfail_h = jax.device_get(
-                (overflow.reshape(-1)[0], nfail.reshape(-1)[0])
-            )
-            self.fallbacks = getattr(self, "fallbacks", 0) + int(nfail_h)
-            if int(overflow_h):
-                # a shard overflowed its in-jit fallback capacity (>cap
-                # provably-ambiguous queries at once): redo the whole
-                # batch through the oracle sharded path — always exact
-                log.info("sharded certified overflow; oracle redo")
-                return sharded_topk_retrieve(
-                    jnp.atleast_2d(jnp.asarray(queries, jnp.float32)),
-                    *self._oracle_buffers(),
-                    exclude_rows,
-                    self._valid,
-                    k=k,
-                    mesh=self.mesh,
-                    axis_name=self.axis_name,
-                    eps=self.eps,
-                    data_axis=self.data_axis,
-                )
-            return s, i
-        if self.use_pallas:
-            body = partial(
-                _local_fused_topk,
-                k=k,
-                tq=min(self.tq, -(-b_local // 8) * 8),
-                tc=self.tc,
-                eps=self.eps,
-                exact=self.exact,
-                interpret=self.interpret,
-                axis_name=self.axis_name,
-            )
-            fn = jax.shard_map(
-                body,
-                mesh=self.mesh,
-                in_specs=(
-                    qspec,                     # queries (repl / data-shard)
-                    P(None, self.axis_name),   # features_t column-sharded
-                    P(None, self.axis_name),   # norms column-sharded
-                    espec,                     # exclusions follow queries
-                    P(),                       # valid count replicated
-                ),
-                out_specs=(qspec, qspec),
-                check_vma=False,
-            )
-            return fn(
-                jnp.atleast_2d(jnp.asarray(queries, jnp.float32)),
-                self.features,
-                self.norms,
-                exclude_rows,
-                jnp.full((1, 1), self.num_items, jnp.int32),
-            )
         return sharded_topk_retrieve(
             queries,
             self.features,
             self.norms,
-            exclude_rows,
+            jnp.asarray(exclude_rows, jnp.int32),
             self._valid,
             k=k,
             mesh=self.mesh,
             axis_name=self.axis_name,
             eps=self.eps,
             data_axis=self.data_axis,
+            path=self.path_for(b, k),
+            interpret=self.interpret,
         )
-
-    def _oracle_buffers(self):
-        """Row-major fp32 shards for the oracle path (certified backend
-        keeps them resident for reranks/fallbacks anyway)."""
-        return self.features32, self.norms1d

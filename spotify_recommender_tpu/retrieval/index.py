@@ -9,10 +9,14 @@ substring scan.  Semantics preserved exactly:
   (the reference scan returns the first hit);
 - name lookup: case-insensitive exact match first, then substring match,
   each returning the lowest matching row (reference Recommender.cu:339-352).
+
+The maps are built on the first lookup, so a catalog that is only ever
+queried by vector (batched retrieval) never pays for them.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import numpy as np
@@ -20,18 +24,32 @@ import numpy as np
 
 class CatalogIndex:
     def __init__(self, track_ids: np.ndarray, track_names: np.ndarray) -> None:
-        self._id_to_row: Dict[str, int] = {}
+        self._track_ids = track_ids
+        self._track_names = track_names
+
+    @functools.cached_property
+    def _id_to_row(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
         # first occurrence wins, matching the reference's forward scan
-        for i, tid in enumerate(track_ids):
-            self._id_to_row.setdefault(str(tid), i)
-        lower = [str(n).lower() for n in track_names]
+        for i, tid in enumerate(self._track_ids):
+            out.setdefault(str(tid), i)
+        return out
+
+    @functools.cached_property
+    def _name_to_row(self) -> Dict[str, int]:
         # exact-name hash map (first occurrence wins, like the id map)
-        self._name_to_row: Dict[str, int] = {}
-        for i, n in enumerate(lower):
-            self._name_to_row.setdefault(n, i)
+        out: Dict[str, int] = {}
+        for i, n in enumerate(self._lower_names):
+            out.setdefault(str(n), i)
+        return out
+
+    @functools.cached_property
+    def _lower_names(self) -> np.ndarray:
         # fixed-width unicode array: np.char.find vectorizes the substring
         # pass (C-speed scan instead of a Python loop per catalog row)
-        self._lower_names = np.asarray(lower, dtype=np.str_)
+        return np.asarray(
+            [str(n).lower() for n in self._track_names], dtype=np.str_
+        )
 
     def find_by_track_id(self, track_id: str) -> Optional[int]:
         return self._id_to_row.get(track_id)

@@ -1,28 +1,23 @@
 """Host-streaming exact retrieval for catalogs beyond device memory.
 
 Completes the catalog-length-scaling ladder (SURVEY §5 "long-context
-analog"): blockwise Pallas tiles cover >VMEM, the certified scan covers
->VMEM-resident HBM catalogs, catalog sharding covers >1-chip HBM — and
-this covers catalogs that do not fit the WHOLE MESH's HBM: feature rows
-stay on host (ideally the memory-mapped catalog directory format, so
-they need not fit host RAM either) and stream through the device in
-fixed-size windows, with the running top-k merged on device.
+analog"): the device-resident catalog covers one card, catalog sharding
+covers a mesh — and this covers catalogs that do not fit the WHOLE MESH's
+memory: feature rows stay on host (ideally the memory-mapped catalog
+directory format, so they need not fit host RAM either) and stream through
+the device in fixed-size windows, with the running top-k merged on device.
 
-Per window the device sees one (window, F) slab: scores are exact
-reference math (`cosine_scores_batched`) and the merge preserves the
-lowest-index tie rule (ascending windows + `merge_topk` favoring the
-earlier list) — results are bit-identical to `ops/similarity.exact_topk`.
+Each window is scored by the path retrieval/path.choose_path picks for a
+(window, F) catalog, and the merge preserves the lowest-index tie rule
+(ascending windows + `merge_topk` favoring the earlier list) — results
+equal `ops/similarity.exact_topk`.
 
-Throughput is PCIe/host-memory-bound by construction (~every byte crosses
-the host-device link once per batch), so this is the capacity tier, not
-the speed tier; batch queries to amortize the stream.
-
-Round-3: windows are **double-buffered** — a background thread stages and
-`device_put`s window i+1 while the device scores window i (JAX dispatch is
-async, so the host thread never waits on compute), and on TPU each window
-is scored by the **fused exact kernel** instead of the XLA oracle, so the
-(B, window) score matrix never materializes and device time stays under
-the host-link transfer time it overlaps with.
+Throughput is bound by the host-device link by construction (every byte
+crosses it once per batch), so this is the capacity tier, not the speed
+tier; batch queries to amortize the stream.  Windows are double-buffered:
+a background thread stages and `device_put`s window i+1 while the device
+scores window i (JAX dispatch is async, so the host thread never waits on
+compute).
 """
 
 from __future__ import annotations
@@ -37,17 +32,21 @@ import numpy as np
 
 from spotify_recommender_tpu.core.config import RetrievalConfig
 from spotify_recommender_tpu.core.logging import get_logger
-from spotify_recommender_tpu.ops.pallas.fused_topk import _round_up
-from spotify_recommender_tpu.ops.similarity import (
-    NEG_INF,
-    cosine_scores_batched,
-    merge_topk,
+from spotify_recommender_tpu.ops.similarity import NEG_INF, merge_topk
+from spotify_recommender_tpu.retrieval.path import (
+    KERNEL,
+    choose_path,
+    score_topk,
 )
 
 log = get_logger(__name__)
 
 
-@partial(jax.jit, static_argnames=("k", "eps"))
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@partial(jax.jit, static_argnames=("k", "eps", "path", "interpret"))
 def _window_merge(
     best_s: jnp.ndarray,     # (B, k) running top-k scores
     best_i: jnp.ndarray,     # (B, k) running global indices
@@ -57,18 +56,23 @@ def _window_merge(
     offset: jnp.ndarray,     # () int32 global index of the window start
     valid: jnp.ndarray,      # () int32 valid rows in this window
     excl: jnp.ndarray,       # (B,) excluded global rows (-1 = none)
+    *,
     k: int,
     eps: float,
+    path: str,
+    interpret: bool,
 ):
-    scores = cosine_scores_batched(queries, window, norms, eps)
-    gcols = offset + jnp.arange(window.shape[0], dtype=jnp.int32)
-    bad = (gcols[None, :] >= offset + valid) | (
-        gcols[None, :] == excl[:, None]
+    # exclusions are global; the window sees window-local rows
+    excl_local = jnp.where(
+        (excl >= offset) & (excl < offset + valid), excl - offset, -1
     )
-    scores = jnp.where(bad, NEG_INF, scores)
-    w_s, w_pos = jax.lax.top_k(scores, k)
+    w_s, w_i = score_topk(
+        queries, window, norms, excl_local, valid,
+        k=k, eps=eps, path=path, interpret=interpret,
+    )
+    # keep the -1 sentinel of empty slots out of the global frame
     return merge_topk(
-        best_s, best_i, w_s, gcols[0] + w_pos.astype(jnp.int32), k
+        best_s, best_i, w_s, jnp.where(w_i < 0, -1, offset + w_i), k
     )
 
 
@@ -87,27 +91,17 @@ class StreamingRetriever:
         norms: Optional[np.ndarray] = None,
         config: Optional[RetrievalConfig] = None,
         window: int = 1 << 20,          # rows per device slab (~48 MB @ F=12)
-        use_fused: Optional[bool] = None,
         prefetch: bool = True,
+        interpret: bool = False,        # tests: the kernel, interpreted
     ) -> None:
         self.config = config or RetrievalConfig()
         self.features = features
         n, f = features.shape
         self.num_items = n
         self.feature_dim = f
-        # pad the window to a lane multiple so the fused kernel tiles it
         self.window = _round_up(min(window, max(1, n)), 128)
-        # fused Pallas scoring on TPU; the XLA oracle elsewhere (interpret-
-        # mode Pallas on CPU would be slower than the oracle at scale)
-        self.use_fused = (
-            jax.default_backend() == "tpu" if use_fused is None else use_fused
-        )
-        self.interpret = jax.default_backend() != "tpu"
+        self.interpret = interpret
         self.prefetch = prefetch
-        tc = min(self.config.catalog_tile, self.window)
-        while self.window % tc:
-            tc -= 128
-        self._tc = tc
         if norms is None:
             # windowed norm computation: never materialize all rows
             norms = np.empty(n, np.float32)
@@ -141,23 +135,20 @@ class StreamingRetriever:
         best_i = jnp.full((b, k), -1, jnp.int32)
         w = self.window
         starts = list(range(0, self.num_items, w))
+        path = KERNEL if self.interpret else choose_path(
+            jax.default_backend(), w, f, b, k,
+            use_kernel=self.config.use_pallas,
+        )
 
         def stage(s: int):
             """Host-side staging + async H2D upload of one window (runs on
             the prefetch thread, overlapped with the device scoring the
             previous window)."""
             e = min(s + w, self.num_items)
-            rows = np.asarray(self.features[s:e], np.float32)
-            if self.use_fused:
-                slab = np.zeros((f, w), np.float32)       # kernel layout
-                slab[:, : e - s] = rows.T
-                nslab = np.zeros((1, w), np.float32)
-                nslab[0, : e - s] = self.norms[s:e]
-            else:
-                slab = np.zeros((w, f), np.float32)
-                slab[: e - s] = rows
-                nslab = np.zeros(w, np.float32)
-                nslab[: e - s] = self.norms[s:e]
+            slab = np.zeros((w, f), np.float32)
+            slab[: e - s] = np.asarray(self.features[s:e], np.float32)
+            nslab = np.zeros(w, np.float32)
+            nslab[: e - s] = self.norms[s:e]
             return (
                 jax.device_put(jnp.asarray(slab)),
                 jax.device_put(jnp.asarray(nslab)),
@@ -172,36 +163,12 @@ class StreamingRetriever:
                 slab, nslab, s, e = fut.result() if pool else stage(s0)
                 if pool and i + 1 < len(starts):
                     fut = pool.submit(stage, starts[i + 1])
-                if self.use_fused:
-                    from spotify_recommender_tpu.ops.pallas.fused_topk import (
-                        _prepare_and_call,
-                    )
-
-                    # exclusion indices are global; the window kernel sees
-                    # window-local columns
-                    excl_local = jnp.where(
-                        (excl >= s) & (excl < e), excl - s, -1
-                    )
-                    tq = min(self.config.query_tile, _round_up(b, 8))
-                    w_s, w_i = _prepare_and_call(
-                        queries, excl_local, slab, nslab,
-                        jnp.full((1, 1), e - s, jnp.int32),
-                        k=k, tq=tq, tc=self._tc, eps=self.config.eps,
-                        exact=True, interpret=self.interpret,
-                    )
-                    # keep the kernel's -1 invalid-index sentinel intact:
-                    # a window with < k valid items must not contribute a
-                    # bogus global index s-1 to the merge
-                    w_i = jnp.where(w_i < 0, -1, w_i + s)
-                    best_s, best_i = merge_topk(
-                        best_s, best_i, w_s, w_i, k
-                    )
-                else:
-                    best_s, best_i = _window_merge(
-                        best_s, best_i, queries, slab, nslab,
-                        jnp.int32(s), jnp.int32(e - s), excl,
-                        k=k, eps=self.config.eps,
-                    )
+                best_s, best_i = _window_merge(
+                    best_s, best_i, queries, slab, nslab,
+                    jnp.int32(s), jnp.int32(e - s), excl,
+                    k=k, eps=self.config.eps, path=path,
+                    interpret=self.interpret,
+                )
         finally:
             if pool:
                 pool.shutdown(wait=False)

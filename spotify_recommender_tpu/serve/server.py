@@ -129,14 +129,12 @@ class BatchCoalescer:
                 continue
             # pad to a power-of-two bucket IN NUMPY: the device then only
             # ever sees a handful of batch shapes (each distinct raw size
-            # would otherwise compile its own padding executable — ~0.5 s
-            # per size on tunneled dev backends)
+            # would otherwise compile its own executable)
             nb = len(batch)
             bb = max(8, 1 << (nb - 1).bit_length())
             f = batch[0][0].shape[0]
-            # pad rows DUPLICATE the first query (not zeros): padding then
-            # behaves like ordinary traffic instead of tripping the
-            # certified tier's zero-norm certificate per batch
+            # pad rows DUPLICATE the first query (not zeros), so padding
+            # behaves like ordinary traffic
             queries = np.tile(batch[0][0].astype(np.float32), (bb, 1))
             excl = np.full(bb, -1, np.int32)
             for i, entry in enumerate(batch):
@@ -203,9 +201,9 @@ class RecommenderService:
     def warmup(self, k: int = 10, max_batch: Optional[int] = None) -> float:
         """Compile every coalescer batch-size bucket before traffic lands.
 
-        First-compile over a device (minutes on tunneled backends) would
-        otherwise be paid by the first unlucky requests of each batch
-        size; serve() calls this at startup.  Returns seconds spent."""
+        The first compile of each batch size would otherwise be paid by
+        the first unlucky requests of that size; serve() calls this at
+        startup.  Returns seconds spent."""
         t0 = time.perf_counter()
         feats = self.retriever.catalog.features
         cap = min(max_batch or self.coalescer.max_batch, 256)
@@ -271,14 +269,9 @@ class RecommenderService:
             "mean_latency_ms": round(1e3 * s["total_latency_s"] / n, 3),
             **self.latency_percentiles(),
             "num_items": len(self.retriever.catalog),
-            "backend": self.retriever._backend,
+            "backend": self.retriever.backend,
             "coalescer": dict(self.coalescer.stats),
         }
-        fused = getattr(self.retriever, "_fused", None)
-        if fused is not None and hasattr(fused, "fallbacks"):
-            # certified tier observability: how many queries needed the
-            # oracle fallback (provably-ambiguous near-ties)
-            out["certificate_fallbacks"] = fused.fallbacks
         return out
 
     def recommend(self, query: str, by_id: bool, k: int) -> dict:
@@ -362,7 +355,7 @@ class RecommenderService:
         return {
             "status": "ok",
             "num_items": len(self.retriever.catalog),
-            "backend": self.retriever._backend,
+            "backend": self.retriever.backend,
         }
 
     def close(self) -> None:

@@ -98,15 +98,12 @@ class TestShardedRetrieval:
 
 
 class TestShardedPallas:
-    """Fused kernel per shard (interpret mode on the CPU mesh)."""
+    """Fused Triton kernel per shard (interpret mode on the CPU mesh)."""
 
     def test_matches_oracle(self, mesh8):
         feats = random_features(1000, seed=31)
         norms = np.linalg.norm(feats, axis=1).astype(np.float32)
-        sc = ShardedCatalog(
-            feats, norms, mesh8, use_pallas=True, interpret=True,
-            query_tile=16, catalog_tile=128,
-        )
+        sc = ShardedCatalog(feats, norms, mesh8, interpret=True)
         queries = jnp.asarray(feats[:8])
         excl = jnp.arange(8, dtype=jnp.int32)
         s_s, s_r = sc.retrieve(queries, k=10, exclude_rows=excl)
@@ -122,10 +119,7 @@ class TestShardedPallas:
     def test_unaligned_catalog(self, mesh8):
         feats = random_features(777, seed=32)
         norms = np.linalg.norm(feats, axis=1).astype(np.float32)
-        sc = ShardedCatalog(
-            feats, norms, mesh8, use_pallas=True, interpret=True,
-            query_tile=8, catalog_tile=128,
-        )
+        sc = ShardedCatalog(feats, norms, mesh8, interpret=True)
         queries = jnp.asarray(feats[:4])
         s_s, s_r = sc.retrieve(queries, k=20)
         g_s, g_r = exact_topk(queries, jnp.asarray(feats), jnp.asarray(norms), k=20)
@@ -133,26 +127,20 @@ class TestShardedPallas:
         assert np.asarray(s_r).max() < 777
 
 
-class TestCertifiedSharded:
-    """The certified tier per shard (production multi-chip path): local
-    certificates + deterministic merge must equal the oracle exactly."""
+class TestKernelSharded:
+    """The kernel per shard on larger shards: local top-k in global row
+    ids + deterministic merge must equal the oracle exactly."""
 
     def test_matches_oracle_sharded(self, rng):
-        import jax.numpy as jnp
-
-        from spotify_recommender_tpu.core.config import MeshConfig
-        from spotify_recommender_tpu.core.mesh import make_mesh
-        from spotify_recommender_tpu.ops.similarity import exact_topk
-        from spotify_recommender_tpu.parallel.sharding import ShardedCatalog
-
-        n = 20_000 + 19
+        n = 4000 + 19
         feats = rng.random((n, 12), dtype=np.float32)
+        feats[7] = feats[3]                     # an exact tie across rows
         norms = np.linalg.norm(feats, axis=1).astype(np.float32)
         mesh = make_mesh(MeshConfig(data=1, catalog=8))
-        sc = ShardedCatalog(
-            feats, norms, mesh, use_certified=True, interpret=True
-        )
-        rows = rng.integers(0, n, 16).astype(np.int32)
+        sc = ShardedCatalog(feats, norms, mesh, interpret=True)
+        rows = np.concatenate(
+            [[3], rng.integers(0, n, 15)]
+        ).astype(np.int32)
         q = feats[rows]
         s, i = sc.retrieve(jnp.asarray(q), 10, jnp.asarray(rows))
         rs, ri = exact_topk(
@@ -165,22 +153,14 @@ class TestCertifiedSharded:
         )
 
     def test_layout_invariance(self, rng):
-        import jax.numpy as jnp
-
-        from spotify_recommender_tpu.core.config import MeshConfig
-        from spotify_recommender_tpu.core.mesh import make_mesh
-        from spotify_recommender_tpu.parallel.sharding import ShardedCatalog
-
-        n = 6000
+        n = 3000
         feats = rng.random((n, 12), dtype=np.float32)
         norms = np.linalg.norm(feats, axis=1).astype(np.float32)
         q = feats[:8]
         outs = []
         for shards in (2, 8):
             mesh = make_mesh(MeshConfig(data=1, catalog=shards))
-            sc = ShardedCatalog(
-                feats, norms, mesh, use_certified=True, interpret=True
-            )
+            sc = ShardedCatalog(feats, norms, mesh, interpret=True)
             _, i = sc.retrieve(jnp.asarray(q), 7)
             outs.append(np.asarray(i))
         np.testing.assert_array_equal(outs[0], outs[1])
@@ -207,13 +187,12 @@ class Test2DMesh:
             np.asarray(s), np.asarray(rs), rtol=0, atol=1e-6
         )
 
-    def test_certified_backend_matches_oracle(self):
+    def test_kernel_backend_matches_oracle(self):
         feats = random_features(900, seed=8)
         norms = np.linalg.norm(feats, axis=1).astype(np.float32)
         mesh = make_mesh(MeshConfig(data=4, catalog=2))
         sc = ShardedCatalog(
-            feats, norms, mesh, data_axis="data",
-            use_certified=True, interpret=True,
+            feats, norms, mesh, data_axis="data", interpret=True,
         )
         q = jnp.asarray(feats[:8])
         s, i = sc.retrieve(q, 5)
@@ -231,8 +210,9 @@ class Test2DMesh:
 
 class TestICITraffic:
     def test_allgather_moves_only_candidates(self):
-        """Every all_gather in the sharded program carries (B, k_local)
-        payloads — the (B, N) score matrix never crosses the ICI."""
+        """Every all_gather in the sharded program carries (B, k)
+        payloads — the (B, N) score matrix never crosses the
+        interconnect."""
         import functools
 
         from spotify_recommender_tpu.parallel.sharding import (
@@ -296,62 +276,27 @@ def test_dryrun_multichip_16_devices():
     assert "OK16" in proc.stdout
 
 
-class TestKernelUnification:
-    """The sharded certified path must run the SAME kernel generation as
-    the single-chip CertifiedRetriever (VERDICT r4 weak #1): one
-    RetrievalConfig flows through build_certified_layout into the shard
-    body, so scan version, depth, and W never drift between the paths."""
+class TestShardPathChoice:
+    """Each shard runs the path retrieval/path.choose_path picks for its
+    own shape; `interpret=True` (tests) forces the kernel."""
 
-    def test_config_flows_to_v3_kernel(self, rng, monkeypatch):
-        import spotify_recommender_tpu.ops.pallas.fused_topk as ft
-
-        n = 4096 + 7   # fresh shape -> fresh trace of _certified_retrieve
-        feats = rng.random((n, 12), dtype=np.float32)
+    def test_cpu_shards_run_xla(self, mesh8):
+        feats = random_features(1000, seed=11)
         norms = np.linalg.norm(feats, axis=1).astype(np.float32)
-        mesh = make_mesh(MeshConfig(data=1, catalog=8))
-        calls = []
-        orig = ft._scan_call_v3
+        sc = ShardedCatalog(feats, norms, mesh8)
+        assert sc.n_local == 125
+        assert sc.path_for(16, 10) == "xla"
+        assert ShardedCatalog(
+            feats, norms, mesh8, interpret=True
+        ).path_for(16, 10) == "kernel"
 
-        def spy(*a, **kw):
-            calls.append(dict(kw))
-            return orig(*a, **kw)
-
-        monkeypatch.setattr(ft, "_scan_call_v3", spy)
-        cfg = RetrievalConfig(scan_depth=2)
-        sc = ShardedCatalog(
-            feats, norms, mesh, use_certified=True, interpret=True,
-            config=cfg,
-        )
-        assert (sc.scan, sc.depth) == ("v3", 2)
-        assert sc.tq == cfg.query_tile      # retuned tile, not ad-hoc 512
-        q = jnp.asarray(feats[:8])
-        s, i = sc.retrieve(q, 10)
-        assert calls, "sharded certified retrieve did not run the v3 scan"
-        assert calls[0]["depth"] == 2
-        g_s, g_i = exact_topk(
-            q, jnp.asarray(feats), jnp.asarray(norms), k=10
-        )
-        np.testing.assert_array_equal(np.asarray(i), np.asarray(g_i))
-
-    def test_layout_matches_single_chip_builder(self, rng):
-        """ShardedCatalog's per-shard buffers come from the same builder
-        as CertifiedRetriever (no duplicated layout code)."""
-        from spotify_recommender_tpu.ops.pallas.fused_topk import (
-            build_certified_layout,
-        )
-
-        feats = rng.random((3000, 12), dtype=np.float32)
+    def test_shards_land_on_every_device(self, mesh8):
+        feats = random_features(803, seed=12)
         norms = np.linalg.norm(feats, axis=1).astype(np.float32)
-        cfg = RetrievalConfig()
-        lay = build_certified_layout(feats, norms, cfg, n_shards=8)
-        mesh = make_mesh(MeshConfig(data=1, catalog=8))
-        sc = ShardedCatalog(
-            feats, norms, mesh, use_certified=True, interpret=True,
-            config=cfg,
-        )
-        assert sc.tc == lay.tc and sc.w == lay.w
-        assert sc.n_local * 8 == lay.np_pad
-        assert sc.n_local % 512 == 0        # in-jit fallback block aligned
-        np.testing.assert_array_equal(
-            np.asarray(sc.features32), lay.feats32
+        sc = ShardedCatalog(feats, norms, mesh8)
+        devices = {s.device for s in sc.features.addressable_shards}
+        assert devices == set(mesh8.devices.flat)
+        assert all(
+            s.data.shape == (sc.n_local, 12)
+            for s in sc.features.addressable_shards
         )

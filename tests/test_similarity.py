@@ -151,37 +151,6 @@ class TestChunkedTopK:
         assert np.asarray(c_i).max() < 1003
 
 
-class TestIterativeOracle:
-    """exact_topk_iterative must be bit-identical to exact_topk (it backs
-    the certified tier's fallback, whose whole point is oracle parity)."""
-
-    def test_matches_exact_topk(self, rng):
-        import jax.numpy as jnp
-
-        from spotify_recommender_tpu.ops.similarity import (
-            exact_topk,
-            exact_topk_iterative,
-        )
-
-        feats = rng.random((5000, 12), dtype=np.float32)
-        # exact duplicate rows: tie behavior must match lax.top_k
-        feats[400] = feats[100]
-        feats[4400] = feats[100]
-        norms = np.linalg.norm(feats, axis=1).astype(np.float32)
-        q = feats[rng.integers(0, 5000, 16)]
-        excl = rng.integers(0, 5000, 16).astype(np.int32)
-        a_s, a_i = exact_topk(
-            jnp.asarray(q), jnp.asarray(feats), jnp.asarray(norms),
-            exclude_rows=jnp.asarray(excl), k=12,
-        )
-        b_s, b_i = exact_topk_iterative(
-            jnp.asarray(q), jnp.asarray(feats), jnp.asarray(norms),
-            exclude_rows=jnp.asarray(excl), k=12,
-        )
-        np.testing.assert_array_equal(np.asarray(a_i), np.asarray(b_i))
-        np.testing.assert_array_equal(np.asarray(a_s), np.asarray(b_s))
-
-
 class TestMIPSChunked:
     """mips_topk_chunked: the MF/two-tower serving primitive."""
 
